@@ -1,9 +1,9 @@
 // Native host-side read preprocessing for nadavca_tpu.
 //
-// The TPU device path runs at ~10k reads/s per chip, so the per-read Python
-// host work (normalize → seed-and-vote anchor → move-table composition →
-// expected levels → calibration fit) becomes the pipeline bottleneck
-// (~2.4 ms/read measured). This file is the native equivalent of
+// The device path is fast enough that the per-read Python host work
+// (normalize → seed-and-vote anchor → move-table composition → expected
+// levels → calibration fit) becomes the pipeline bottleneck (~2.4 ms/read
+// measured on the host CPU). This file is the native equivalent of
 // nadavca_tpu/pipeline.preprocess_read + anchor.SeedIndex/anchor_basecall/
 // signal_anchor_path + io.fast5.normalize_signal + KmerModel.expected_signal
 // — same algorithms, same numeric conventions (numpy median/MAD, np.cov's

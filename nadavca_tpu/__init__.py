@@ -1,9 +1,10 @@
-"""nadavca_tpu — TPU-native nanopore raw-signal alignment and SNP calling.
+"""nadavca_tpu — nanopore raw-signal alignment and SNP calling in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 ``fmfi-compbio/nadavca`` (see SURVEY.md): raw squiggle→reference alignment via
-a banded Viterbi wavefront kernel, and signal-level SNP calling via fused
-posterior ops, data-parallel over TPU meshes.
+a banded Viterbi (CUDA kernels on an NVIDIA GPU, lax.scan elsewhere), and
+signal-level SNP calling via fused posterior ops, data-parallel over device
+meshes.
 """
 
 from .api import ReadAlignment, align_signal, call_snps

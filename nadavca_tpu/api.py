@@ -3,7 +3,7 @@
 Reference parity for the documented library entry point (SURVEY.md §3.3:
 ``import nadavca; align_signal(reference, fast5_paths, config…)`` returns
 per-read alignment objects — per-position signal ranges + likelihoods —
-instead of writing files; reconstructed, mount empty). The TPU rebuild keeps
+instead of writing files; reconstructed, mount empty). This rebuild keeps
 that surface but batches reads onto the device: ingest/anchor on host,
 bucketed padded batches, one jitted banded-Viterbi + rescore program per
 bucket shape.
@@ -111,24 +111,11 @@ def _run_batches(
     cfg: AlignConfig,
     backend: str,
     batch_reads: int,
-    subst=None,
 ) -> Iterator[Tuple[List[ReadRecord], Batch, dict]]:
     for group in _batches(records, batch_reads):
         batch = assemble_batch(group, model, cfg)
-        out = align_batch(batch, model, cfg, backend=backend, subst=subst)
+        out = align_batch(batch, model, cfg, backend=backend)
         yield group, batch, out
-
-
-def _maybe_subst(genome: Genome, model: KmerModel, cfg: AlignConfig,
-                 backend: str):
-    from .pipeline import resolve_backend
-
-    backend = resolve_backend(cfg, backend)
-    if backend != "pallas":
-        return None
-    from .ops.subst_tables import build_subst_tables
-
-    return build_subst_tables(genome, model)
 
 
 def align_signal(
@@ -157,12 +144,10 @@ def align_signal(
     model = model or default_model(cfg.k)
     records = _preprocess(_iter_raw(fast5), genome, model, cfg, workers,
                           prep=prep)
-    subst = _maybe_subst(genome, model, cfg, backend) \
-        if compute_probabilities else None
     order = {r.read_id: i for i, r in enumerate(records)}
     results: List[Optional[ReadAlignment]] = [None] * len(records)
     for group, batch, out in _run_batches(records, genome, model, cfg,
-                                          backend, batch_reads, subst):
+                                          backend, batch_reads):
         paths = np.asarray(out["path"])
         scores = np.asarray(out["score"])
         bll = np.asarray(out["base_loglik"]) if compute_probabilities else None
@@ -211,11 +196,10 @@ def call_snps(
     model = model or default_model(cfg.k)
     records = _preprocess(_iter_raw(fast5), genome, model, cfg, workers,
                           prep=prep)
-    subst = _maybe_subst(genome, model, cfg, backend)
     accs = {c.name: callmod.make_accumulators(len(c), with_votes=True)
             for c in genome}
     for group, batch, out in _run_batches(records, genome, model, cfg,
-                                          backend, batch_reads, subst):
+                                          backend, batch_reads):
         by_contig: dict = {}
         for r in range(batch.n_reads):
             by_contig.setdefault(group[r].anchor.contig, []).append(r)

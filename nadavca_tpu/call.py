@@ -5,7 +5,7 @@ Parity target: the reference's estimator/SNP layer (SURVEY.md L3, "SNP caller
 base log-likelihoods are summed across reads covering each locus, converted to
 posteriors under a uniform prior, thresholded, and reported.
 
-TPU-first shape: the aggregation is a scatter-add of (R, L, 4) read windows
+Device shape: the aggregation is a scatter-add of (R, L, 4) read windows
 into a (G, 4) genome accumulator — a single fused XLA op per batch; across
 devices the accumulators are sharded over the genome axis and merged by psum
 (parallel/accumulators.py). Reverse-strand reads are handled by flipping the

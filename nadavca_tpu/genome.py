@@ -6,7 +6,7 @@ was empty so no file:line citation is possible). Capabilities reproduced:
 FASTA parsing into contigs, reverse complement, integer base encoding, and
 k-mer window extraction.
 
-TPU-first note: all encoding is vectorized numpy producing flat ``int8``/
+Device note: all encoding is vectorized numpy producing flat ``int8``/
 ``int32`` arrays that device code consumes directly; nothing here runs on
 device.
 """

@@ -12,7 +12,7 @@ realistic structure: levels dominated by the central bases, unit-scale spread,
 per-kmer noise std in a plausible band. The loader also accepts the standard
 ONT tsv format (``kmer\tlevel_mean\tlevel_stdv``) so a real model drops in.
 
-TPU-first note: ``expected_signal`` is a flat gather producing (mu, sigma)
+Device note: ``expected_signal`` is a flat gather producing (mu, sigma)
 float32 arrays per reference window; windows for a whole batch are assembled
 host-side and shipped to device once per batch.
 """

@@ -1,1 +1,1 @@
-"""Compute ops: banded DP (numpy spec, lax.scan, Pallas kernel), SNP scoring."""
+"""Compute ops: banded DP (numpy spec, lax.scan, CUDA kernels), SNP scoring."""

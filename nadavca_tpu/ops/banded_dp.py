@@ -5,13 +5,17 @@ ops/dp_spec.py (which is the float64 oracle; see SURVEY.md §3.4). It processes
 a padded batch of reads at once:
 
   * scan over the signal axis t (sequential — the DP recurrence),
-  * vectorized over reads (batch) and band slots (lanes) — exactly the
-    parallel structure the Pallas wavefront kernel (ops/pallas_dp.py) maps
-    onto VPU sublanes × lanes,
+  * vectorized over reads (batch) and band slots — the same parallel
+    structure the CUDA fill kernel (ops/cuda_dp.py) maps onto one warp per
+    read,
   * running per-step renormalization so float32 stays exact enough for
     call-level parity (SURVEY.md §7.3 item 1): subtracting a per-read
     constant per step leaves every argmax decision unchanged in exact
     arithmetic while keeping carried values O(1).
+
+It runs on the CPU (tests) and for configurations the CUDA kernels do not
+cover (pipeline.resolve_backend), and it is the reference those kernels are
+checked against.
 
 Shapes (R = reads in batch, T = padded signal length, B = band width,
 N = padded reference window length in k-mer positions):
@@ -66,27 +70,13 @@ def _band_gather(arr, idx, fill):
     return jnp.where(ok, jnp.take_along_axis(arr, safe, axis=1), fill)
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "pin_start", "pin_end"))
-def banded_viterbi_batch(
-    x: jax.Array,
-    t_len: jax.Array,
-    mu: jax.Array,
-    sigma: jax.Array,
-    n_ref: jax.Array,
-    lo: jax.Array,
-    cfg: AlignConfig = AlignConfig(),
-    pin_start: bool = False,
-    pin_end: bool = False,
-) -> ViterbiResult:
-    """Fill + backtrack of the banded Viterbi over a padded batch.
+def banded_viterbi_fill(x, t_len, mu, sigma, n_ref, lo,
+                        cfg: AlignConfig, pin_start: bool = False):
+    """The DP fill alone: (V_fin (R, B), acc (R,), decs (T-1, R, B) int8).
 
-    ``pin_start``/``pin_end`` constrain the alignment to begin at reference
-    position 0 / end at position n_ref-1 instead of floating freely within
-    the band. The joint rescore pass (nadavca_tpu.joint) pins both: with
-    free endpoints a whole-slice shift is nearly free, so adjacent-position
-    hypotheses score almost identically — the very ambiguity the pass
-    exists to break. Default off: the production aligner wants free ends
-    (reads enter/leave the window mid-signal).
+    ``decs[t-1]`` holds the decision entering time t per band slot
+    (DEC_STAY/DEC_MOVE/DEC_SKIP, DEC_START where no predecessor exists,
+    DEC_STAY on padding steps); V_fin + acc is the final column's score.
     """
     R, T = x.shape
     B = cfg.band_width
@@ -104,10 +94,9 @@ def banded_viterbi_batch(
         if cfg.use_skip:
             e = gaussian_logpdf(x[:, t][:, None], m, s)
             return jnp.where(valid, e, NEG_INF)
-        # EXACT mirror of the Pallas fill's polynomial emission with the
-        # stay transition folded in (ops/pallas_dp._fill_kernel): backends
-        # must make bit-identical decisions, so the expression — not just
-        # the math — matches. Returns e + log_p_stay; the t=0 free start
+        # polynomial emission with the stay transition folded in — the
+        # expression the CUDA fill (csrc/dp_kernels.cu) evaluates, so both
+        # backends round alike. Returns e + log_p_stay; the t=0 free start
         # subtracts it back.
         inv2v = 0.5 / (s * s)
         em_const = jnp.where(valid, -jnp.log(s) - _HALF_LOG_2PI, NEG_INF)
@@ -144,7 +133,7 @@ def banded_viterbi_batch(
             best = jnp.argmax(cands, axis=0).astype(jnp.int8)
             best_val = jnp.max(cands, axis=0)
         else:
-            # folded-transition compare — the exact Pallas expression
+            # folded-transition compare (the CUDA fill's expression)
             v0 = shifted(0)
             mv = shifted(1) + dcs
             best = (mv > v0).astype(jnp.int8)
@@ -166,7 +155,36 @@ def banded_viterbi_batch(
         return (V_out, acc_out), dec_out
 
     (V_fin, acc_fin), decs = jax.lax.scan(step, (V0, m0), jnp.arange(1, T))
-    # decs: (T-1, R, B) int8
+    return V_fin, acc_fin, decs
+
+
+@functools.partial(jax.jit, static_argnames=("cfg", "pin_start", "pin_end"))
+def banded_viterbi_batch(
+    x: jax.Array,
+    t_len: jax.Array,
+    mu: jax.Array,
+    sigma: jax.Array,
+    n_ref: jax.Array,
+    lo: jax.Array,
+    cfg: AlignConfig = AlignConfig(),
+    pin_start: bool = False,
+    pin_end: bool = False,
+) -> ViterbiResult:
+    """Fill + backtrack of the banded Viterbi over a padded batch.
+
+    ``pin_start``/``pin_end`` constrain the alignment to begin at reference
+    position 0 / end at position n_ref-1 instead of floating freely within
+    the band. The joint rescore pass (nadavca_tpu.joint) pins both: with
+    free endpoints a whole-slice shift is nearly free, so adjacent-position
+    hypotheses score almost identically — the very ambiguity the pass
+    exists to break. Default off: the production aligner wants free ends
+    (reads enter/leave the window mid-signal).
+    """
+    T = x.shape[1]
+    B = cfg.band_width
+    j_idx = jnp.arange(B, dtype=jnp.int32)[None, :]
+    V_fin, acc_fin, decs = banded_viterbi_fill(
+        x, t_len, mu, sigma, n_ref, lo, cfg, pin_start=pin_start)
 
     i_fin = lo[:, T - 1][:, None] + j_idx
     V_valid = jnp.where(i_fin < n_ref[:, None], V_fin, NEG_INF)
@@ -301,6 +319,46 @@ def make_band_batch(
     return lo.astype(np.int32)
 
 
+def local_segments(path, t_len, L: int, N: int, k: int, t_w: int):
+    """Per window base i, the samples its local re-DP scores: (S, W, p_lo, kk).
+
+    The k-mer positions overlapping base i are p_lo .. p_lo + kk - 1
+    (clipped to the part of the window the path covers); the global path
+    assigned them samples S .. S + W - 1, with W truncated at t_w. All four
+    are (R, L) int32. Shared by the XLA re-DP below and the CUDA kernel
+    (ops/cuda_dp.py), so both score the same samples.
+    """
+    T = path.shape[1]
+    tmask = jnp.arange(T)[None, :] < t_len[:, None]
+    path_safe = jnp.where(tmask, path, N)  # padding samples -> overflow segment
+
+    # segment bounds from the monotone path by bisection: cnt[i] = #{t :
+    # path[t] < i}, so S = cnt[p_lo], E = cnt[p_hi + 1]. This stays correct
+    # when the path skips positions (cfg.use_skip): a skipped position
+    # contributes no samples but the bounds of the surrounding visited
+    # positions are exact.
+    pos_all = jnp.arange(N + 1, dtype=jnp.int32)
+    cnt = jax.vmap(
+        lambda p: jnp.searchsorted(p, pos_all, side="left")
+    )(path_safe).astype(jnp.int32)                           # (R, N + 1)
+
+    first_pos = path[:, 0]                                   # (R,)
+    last_t = jnp.maximum(t_len - 1, 0)
+    last_pos = jnp.take_along_axis(path, last_t[:, None], axis=1)[:, 0]
+
+    i_idx = jnp.arange(L, dtype=jnp.int32)[None, :]          # (1, L)
+    p_lo = jnp.clip(i_idx - k + 1, 0, N - 1)
+    p_hi = jnp.clip(i_idx, 0, N - 1)
+    p_lo = jnp.maximum(p_lo, first_pos[:, None])             # (R, L)
+    p_hi = jnp.minimum(p_hi, last_pos[:, None])
+    kk = p_hi - p_lo + 1                                     # (R, L) positions in window
+
+    S = jnp.take_along_axis(cnt, jnp.clip(p_lo, 0, N), axis=1)       # (R, L)
+    E = jnp.take_along_axis(cnt, jnp.clip(p_hi + 1, 0, N), axis=1)
+    W = jnp.clip(E - S, 0, t_w)
+    return S, W, p_lo.astype(jnp.int32), kk.astype(jnp.int32)
+
+
 @functools.partial(jax.jit, static_argnames=("k", "t_w", "cfg"))
 def base_loglik_local_batch(
     x: jax.Array,             # (R, T) f32
@@ -326,35 +384,9 @@ def base_loglik_local_batch(
     R, T = x.shape
     L = window_codes.shape[1]
     N = ids.shape[1]
-
-    tmask = jnp.arange(T)[None, :] < t_len[:, None]
-    path_safe = jnp.where(tmask, path, N)  # padding samples -> overflow segment
-
-    # segment bounds from the monotone path by bisection: cnt[i] = #{t :
-    # path[t] < i}, so S = cnt[p_lo], E = cnt[p_hi + 1]. Unlike the previous
-    # seg_start/shifted-seg_end derivation this stays correct when the path
-    # skips positions (cfg.use_skip): a skipped position contributes no
-    # samples but the bounds of the surrounding visited positions are exact.
-    pos_all = jnp.arange(N + 1, dtype=jnp.int32)
-    cnt = jax.vmap(
-        lambda p: jnp.searchsorted(p, pos_all, side="left")
-    )(path_safe).astype(jnp.int32)                           # (R, N + 1)
-
-    first_pos = path[:, 0]                                   # (R,)
-    last_t = jnp.maximum(t_len - 1, 0)
-    last_pos = jnp.take_along_axis(path, last_t[:, None], axis=1)[:, 0]
-
+    S, W, p_lo, kk = local_segments(path, t_len, L, N, k, t_w)
     i_idx = jnp.arange(L, dtype=jnp.int32)[None, :]          # (1, L)
-    p_lo = jnp.clip(i_idx - k + 1, 0, N - 1)
-    p_hi = jnp.clip(i_idx, 0, N - 1)
-    p_lo = jnp.maximum(p_lo, first_pos[:, None])             # (R, L)
-    p_hi = jnp.minimum(p_hi, last_pos[:, None])
-    kk = p_hi - p_lo + 1                                     # (R, L) positions in window
-    valid_i = (kk > 0) & (window_codes < 4) & (i_idx < L)
-
-    S = jnp.take_along_axis(cnt, jnp.clip(p_lo, 0, N), axis=1)       # (R, L)
-    E = jnp.take_along_axis(cnt, jnp.clip(p_hi + 1, 0, N), axis=1)
-    W = jnp.clip(E - S, 0, t_w)
+    valid_i = (kk > 0) & (window_codes < 4)
 
     # gather sample windows: xs[r, i, s] = x[r, S[r,i] + s]
     samp = S[:, :, None] + jnp.arange(t_w, dtype=jnp.int32)[None, None, :]

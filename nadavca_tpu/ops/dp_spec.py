@@ -17,8 +17,8 @@ the method paper arXiv:1705.01620 rather than file:line citations). The
 reference mount being empty also means this spec — not a golden nadavca run —
 is the interim oracle, per SURVEY.md §7.3 item 7.
 
-Everything here is float64 numpy and deliberately unoptimized; the TPU paths
-(ops/banded_dp.py — lax.scan; ops/pallas_dp.py — wavefront kernel) are tested
+Everything here is float64 numpy and deliberately unoptimized; the device
+paths (ops/banded_dp.py — lax.scan; ops/cuda_dp.py — CUDA kernels) are tested
 cell-for-cell against this module.
 """
 
@@ -139,6 +139,39 @@ def banded_viterbi(
         j = j + d - adv
         path[t - 1] = lo[t - 1] + j
     return score, path
+
+
+def path_score(
+    x: np.ndarray,
+    mu: np.ndarray,
+    sigma: np.ndarray,
+    lo: np.ndarray,
+    path: np.ndarray,
+    cfg: AlignConfig = AlignConfig(),
+) -> float:
+    """float64 log-likelihood of a given path under :func:`banded_viterbi`'s
+    model, or NEG_INF if the DP could not produce it (a position outside the
+    band or past the reference, or a step other than stay/move(/skip)).
+
+    For :func:`banded_viterbi`'s own path this is its score; for any other
+    path, ``score - path_score(...)`` is how much likelihood it gives up,
+    which tells a near-tied alternative optimum from a wrong one.
+    """
+    T, N = len(x), len(mu)
+    B = min(cfg.band_width, N)
+    path = np.asarray(path, np.int64)
+    if len(path) != T or not np.all((path >= lo) & (path < lo + B)
+                                    & (path < N)):
+        return NEG_INF
+    steps = np.diff(path)
+    trans = {0: cfg.log_p_stay, 1: cfg.log_p_move}
+    if cfg.use_skip:
+        trans[2] = cfg.log_p_skip
+    if not np.all(np.isin(steps, list(trans))):
+        return NEG_INF
+    log_t = np.select([steps == s for s in trans], list(trans.values()))
+    return float(gaussian_logpdf(x, mu[path], sigma[path]).sum()
+                 + log_t.sum())
 
 
 def path_segments(path: np.ndarray, n_ref: int) -> Tuple[np.ndarray, np.ndarray]:

@@ -4,13 +4,14 @@ This is the rebuild's distributed layer (SURVEY.md §2.2/§2.3 — the reference
 has NO distributed anything; the spec here comes from BASELINE.json's north
 star): read batches are sharded over the ``data`` mesh axis, every device runs
 the identical banded-DP + rescoring program on its shard, and the per-locus
-log-likelihood accumulators merge with a single ``psum`` over ICI — the only
+log-likelihood accumulators merge with a single ``psum`` — the only
 cross-device communication in the whole pipeline.
 
 The per-device program IS :func:`nadavca_tpu.pipeline.device_compute` — the
-same body the single-chip ``_device_step`` jits (Pallas fill with pregathered
-bands, Pallas rescore with genome subst tables), so the single-device and
-multi-device paths cannot diverge; the scatter semantics come from
+same body the single-device ``_device_step`` jits (with the cuda backend,
+the fill/backtrack/rescore custom calls run inside shard_map unchanged), so
+the single-device and multi-device paths cannot diverge; the scatter
+semantics come from
 :func:`nadavca_tpu.call.scatter_values`, shared with ``accumulate_batch``.
 
 Accumulator layouts:
@@ -36,9 +37,7 @@ from .. import call as callmod
 from .. import pipeline as pipelinemod
 
 # stage_batch keys that are NOT sharded over the read axis
-_REPLICATED_KEYS = ("lm", "ls", "ttab", "tva")
-# (n_chunks, R, B) chunk-major band levels: read axis is dim 1
-_CHUNK_MAJOR_KEYS = ("mu_b", "sg_b")
+_REPLICATED_KEYS = ("lm", "ls")
 _META_KEYS = ("backend", "k")
 
 
@@ -53,27 +52,19 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "data") -> Mesh:
 def _spec_for(key: str, axis: str) -> P:
     if key in _REPLICATED_KEYS:
         return P()
-    if key in _CHUNK_MAJOR_KEYS:
-        return P(None, axis, None)
     return P(axis)
-
-
-def stage_specs(cfg: AlignConfig, staged: dict) -> dict:
-    """PartitionSpec per staged-array key (read axis sharded, tables replicated)."""
-    return {k: _spec_for(k, cfg.data_axis)
-            for k, v in staged.items() if k not in _META_KEYS and v is not None}
 
 
 def shard_staged(mesh: Mesh, cfg: AlignConfig, staged: dict) -> dict:
     """device_put the per-batch staged arrays with their mesh shardings.
 
-    Metadata keys pass through; replicated constants (model tables, subst
-    tables) are also put here — device_put is a no-op when the array already
-    has the right sharding, so per-batch calls only move the batch data.
+    Metadata keys pass through; replicated constants (model tables) are
+    also put here — device_put is a no-op when the array already has the
+    right sharding, so per-batch calls only move the batch data.
     """
     out = {}
     for k, v in staged.items():
-        if k in _META_KEYS or v is None:
+        if k in _META_KEYS:
             out[k] = v
         else:
             out[k] = jax.device_put(v, NamedSharding(mesh, _spec_for(k, cfg.data_axis)))
@@ -87,9 +78,6 @@ def make_sharded_step(
     backend: str = "scan",
     k: int = 6,
     genome_sharded: bool = False,
-    interpret: bool = False,
-    use_bands: bool = False,
-    use_tables: bool = False,
     with_path: bool = True,
     merge_deferred: bool = False,
 ):
@@ -103,28 +91,23 @@ def make_sharded_step(
         -> (score, path, acc, cov, votes)        # with_path=True
         -> (score, acc, cov, votes)              # with_path=False
 
-    ``use_bands``/``use_tables`` declare whether the staged dict carries
-    pregathered band levels (pallas backend) and genome subst tables — they
-    shape the traced signature, so they must match the staged dict.
     ``with_path=False`` drops the (R, T) Viterbi path from the outputs — the
-    SNP loop never reads it, and materializing it costs an R·T·4-byte HBM
-    write per batch (~21 MB at bench shapes).
+    SNP loop never reads it, and materializing it costs an R·T·4-byte
+    device-memory write per batch (21 MB at R=512, T=10,240).
 
     ``merge_deferred=True`` removes the per-batch collective entirely: each
     device carries a FULL-genome partial accumulator (global arrays are
     (n_dev·G, 4)-shaped, P(data)-sharded; see make_accumulators_sharded)
     and the step just adds its local contribution — the single psum /
     psum_scatter moves to :func:`make_merge_fn`, run only at checkpoints
-    and before calling. Rationale (scripts/collective_overhead.py,
-    BASELINE.md round-5 row): at config-4 genome size the merge payload is
-    ~166 MB/batch — ~3 ms of ICI or ~23 ms of DCN wire time per batch, the
-    latter comparable to the whole 24.8 ms device step. The merged state is
-    only ever consumed at checkpoint/call time, so per-batch merging is
-    pure overhead; deferring it makes the collective cost O(merges), not
-    O(batches). The trade is G·16 bytes of HBM per device for the partial
-    (74 MB at 4.6 Mb), so callers fall back to per-batch merging for
-    genomes too large to replicate (the genome-sharded regime's reason to
-    exist).
+    and before calling. Rationale: the per-batch merge payload is G·36
+    bytes (166 MB at a 4.6 Mb genome), while the merged state is only ever
+    consumed at checkpoint/call time, so per-batch merging is pure
+    overhead; deferring it makes the collective cost O(merges), not
+    O(batches). The trade is G·36 bytes of device memory per device for
+    the partial (the same three arrays: 166 MB at 4.6 Mb), so callers fall
+    back to per-batch merging for genomes too large to replicate (the
+    genome-sharded regime's reason to exist).
     """
     axis = cfg.data_axis
     G = genome_len
@@ -139,13 +122,8 @@ def make_sharded_step(
     else:
         acc_spec = P(axis) if genome_sharded else repl
 
-    array_keys = ["x", "t_len", "mu", "sigma", "n_ref", "lo", "delta",
-                  "codes", "ids", "lm", "ls"]
-    if use_bands:
-        array_keys += ["mu_b", "sg_b"]
-    if use_tables:
-        array_keys += ["woff", "ttab", "tva"]
-    staged_specs = {k2: _spec_for(k2, axis) for k2 in array_keys}
+    staged_specs = {k2: _spec_for(k2, axis)
+                    for k2 in pipelinemod.STAGED_ARRAYS}
 
     out_specs = ((data, data, acc_spec, acc_spec, acc_spec) if with_path
                  else (data, acc_spec, acc_spec, acc_spec))
@@ -158,14 +136,9 @@ def make_sharded_step(
         check_vma=False,
     )
     def step(staged, wstart, wlen, strand, acc, cov, votes):
-        a = {k2: staged.get(k2) for k2 in
-             ("x", "t_len", "mu", "sigma", "n_ref", "lo", "delta", "mu_b",
-              "sg_b", "codes", "ids", "lm", "ls", "woff", "ttab", "tva")}
         score, path, base_ll = pipelinemod.device_compute(
-            a["x"], a["t_len"], a["mu"], a["sigma"], a["n_ref"], a["lo"],
-            a["delta"], a["mu_b"], a["sg_b"], a["codes"], a["ids"], a["lm"],
-            a["ls"], a["woff"], a["ttab"], a["tva"],
-            cfg=cfg, backend=backend, k=k, interpret=interpret,
+            *(staged[k2] for k2 in pipelinemod.STAGED_ARRAYS),
+            cfg=cfg, backend=backend, k=k,
         )
         flat, ll, n_valid, onehot = callmod.scatter_values(
             base_ll, wstart, wlen, strand, G, cfg)
@@ -206,9 +179,6 @@ def make_sharded_align(
     cfg: AlignConfig,
     backend: str = "scan",
     k: int = 6,
-    interpret: bool = False,
-    use_bands: bool = False,
-    use_tables: bool = False,
 ):
     """Multi-device align-only step (no accumulators): staged -> (score, path).
 
@@ -217,13 +187,8 @@ def make_sharded_align(
     """
     axis = cfg.data_axis
     data = P(axis)
-    array_keys = ["x", "t_len", "mu", "sigma", "n_ref", "lo", "delta",
-                  "codes", "ids", "lm", "ls"]
-    if use_bands:
-        array_keys += ["mu_b", "sg_b"]
-    if use_tables:
-        array_keys += ["woff", "ttab", "tva"]
-    staged_specs = {k2: _spec_for(k2, axis) for k2 in array_keys}
+    staged_specs = {k2: _spec_for(k2, axis)
+                    for k2 in pipelinemod.STAGED_ARRAYS}
 
     @functools.partial(
         shard_map,
@@ -233,14 +198,9 @@ def make_sharded_align(
         check_vma=False,
     )
     def step(staged):
-        a = {k2: staged.get(k2) for k2 in
-             ("x", "t_len", "mu", "sigma", "n_ref", "lo", "delta", "mu_b",
-              "sg_b", "codes", "ids", "lm", "ls", "woff", "ttab", "tva")}
         return pipelinemod.device_compute(
-            a["x"], a["t_len"], a["mu"], a["sigma"], a["n_ref"], a["lo"],
-            a["delta"], a["mu_b"], a["sg_b"], a["codes"], a["ids"], a["lm"],
-            a["ls"], a["woff"], a["ttab"], a["tva"],
-            cfg=cfg, backend=backend, k=k, interpret=interpret,
+            *(staged[k2] for k2 in pipelinemod.STAGED_ARRAYS),
+            cfg=cfg, backend=backend, k=k,
         )
 
     return jax.jit(step)

@@ -2,8 +2,8 @@
 
 Per-read preprocessing (normalize → seed-and-vote anchor → move-table
 composition → expected levels → calibration fit) in C++: the Python path
-measures ~2.4 ms/read, which caps a 2-core host far below the device's
-~10k reads/s. Same algorithms and numeric conventions as
+measures ~2.4 ms/read on the host CPU, which caps a 2-core host far below
+the device step's rate. Same algorithms and numeric conventions as
 ``pipeline.preprocess_read`` — ``tests/test_prep_native.py`` checks parity.
 
 Auto-builds with g++ on first use (same pattern as ops/cpu_ref.py); callers

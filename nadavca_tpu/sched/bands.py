@@ -1,12 +1,12 @@
 """Chunked band construction — the shared banding contract of all DP paths.
 
-TPU-first design decision (SURVEY.md §7.3 item 2): instead of a band that
-slides by 0/1 reference positions every signal sample (the reference C++
-loop's shape), the band is *piecewise constant over signal chunks* of C
-samples and jumps by Δ ≥ 0 at chunk boundaries. Within a chunk the band does
-not move, so the Pallas kernel's inner loop is pure vector ops — no gathers,
-no per-step dynamic slices; the expected-level band slices (mu/sigma) are
-pregathered on host per (read, chunk) and streamed as dense blocks.
+Design decision (SURVEY.md §7.3 item 2): instead of a band that slides by
+0/1 reference positions every signal sample (the reference C++ loop's
+shape), the band is *piecewise constant over signal chunks* of C samples and
+jumps by Δ ≥ 0 at chunk boundaries. Within a chunk the band does not move,
+so the CUDA fill kernel (csrc/dp_kernels.cu) loads each slot's expected
+level once per chunk and its inner loop has no gathers; the band jump is one
+register realignment per chunk.
 
 The numpy spec and the lax.scan path consume the *expanded* per-sample
 ``lo[t] = lo_chunk[t // C]`` form, so all three implementations share one
@@ -92,22 +92,3 @@ def build_chunked_bands(
         band_width=B,
     )
 
-
-def gather_band_levels(
-    mu: np.ndarray, sigma: np.ndarray, bands: ChunkedBands
-) -> tuple[np.ndarray, np.ndarray]:
-    """Pregather per-(read, chunk) band slices of the expected levels.
-
-    mu/sigma: (R, N) padded level arrays. Returns (R, n_chunks, B) float32
-    pairs; out-of-range slots get mu=0, sigma=1 (the kernel masks them via
-    n_ref, see ops/pallas_dp.py).
-    """
-    R, N = mu.shape
-    B = bands.band_width
-    idx = bands.lo[:, :, None].astype(np.int64) + np.arange(B)[None, None, :]
-    ok = idx < N
-    idx = np.minimum(idx, N - 1)
-    ridx = np.arange(R)[:, None, None]
-    mu_b = np.where(ok, mu[ridx, idx], 0.0).astype(np.float32)
-    sg_b = np.where(ok, sigma[ridx, idx], 1.0).astype(np.float32)
-    return mu_b, sg_b

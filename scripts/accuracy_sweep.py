@@ -1,6 +1,5 @@
 """Accuracy harness: recall / precision / F1 over coverage × noise × SNP
-density, plus cross-backend call diffs (VERDICT round-1 item 4; SURVEY.md
-§7.3 item 1, §4 item 5).
+density, plus cross-backend call diffs (SURVEY.md §7.3 item 1, §4 item 5).
 
 Simulated truth (the interim oracle — reference mount empty, SURVEY.md
 header): plant SNPs into a reference at a given density, simulate reads from
@@ -11,11 +10,11 @@ the calls against the planted truth.
 
 Usage:
   python scripts/accuracy_sweep.py --grid quick --backend scan
-  python scripts/accuracy_sweep.py --grid full --backend pallas --markdown
+  python scripts/accuracy_sweep.py --grid full --backend cuda --markdown  # GPU
 
 Prints one JSON line per (cell, backend) and, with --markdown, a table ready
 for BASELINE.md. With --backend both, also reports the per-cell symmetric
-difference between scan and pallas call sets (cross-backend concordance).
+difference between scan and cuda call sets (cross-backend concordance).
 """
 
 from __future__ import annotations
@@ -97,8 +96,7 @@ def build_world(cell: Cell, seed: int):
     return model, true_genome, ref_genome, reads, truth
 
 
-def run_cell(cell: Cell, backend: str, seed: int, interpret: bool = False,
-             cfg=None):
+def run_cell(cell: Cell, backend: str, seed: int, cfg=None):
     """Run the pipeline on one cell; returns (metrics dict, call set)."""
     import jax
     import jax.numpy as jnp
@@ -119,11 +117,6 @@ def run_cell(cell: Cell, backend: str, seed: int, interpret: bool = False,
                               rd.move_index, index, ref_genome, rd.read_id)
         if rec is not None:
             records.append(rec)
-    subst = None
-    if backend == "pallas":
-        from nadavca_tpu.ops.subst_tables import build_subst_tables
-        subst = build_subst_tables(ref_genome, model)
-
     G = len(ref_genome["ref"])
     acc, cov, votes = callmod.make_accumulators(G, with_votes=True)
     records.sort(key=lambda r: len(r.signal))
@@ -131,8 +124,7 @@ def run_cell(cell: Cell, backend: str, seed: int, interpret: bool = False,
     for i in range(0, len(records), BR):
         group = records[i : i + BR]
         batch = assemble_batch(group, model, cfg)
-        out = align_batch(batch, model, cfg, backend=backend, subst=subst,
-                          interpret=interpret)
+        out = align_batch(batch, model, cfg, backend=backend)
         acc, cov, votes = callmod.accumulate_batch(
             acc, cov, out["base_loglik"],
             jnp.asarray(batch.window_start), jnp.asarray(batch.window_len),
@@ -168,7 +160,7 @@ def run_cell(cell: Cell, backend: str, seed: int, interpret: bool = False,
     fn = len(callable_truth - called)
     # adjacent-shift calls: an FP within k bases of an FN truth site is the
     # documented signal-space k-mer ambiguity mode (BASELINE.md 2026-08-18
-    # soak: scan/CPU/pallas all make the identical shifted call), not a
+    # soak: every backend makes the identical shifted call), not a
     # kernel bug — reported separately so the table stays honest
     fp_pos = sorted(p for (p, _) in (called - truth_set))
     fn_pos = sorted(p for (p, _) in (callable_truth - called))
@@ -192,10 +184,9 @@ def run_cell(cell: Cell, backend: str, seed: int, interpret: bool = False,
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--grid", choices=("quick", "full"), default="quick")
-    ap.add_argument("--backend", choices=("scan", "pallas", "both"),
-                    default="scan")
-    ap.add_argument("--interpret", action="store_true",
-                    help="run pallas kernels in interpret mode (CPU)")
+    ap.add_argument("--backend", choices=("scan", "cuda", "both"),
+                    default="scan",
+                    help="cuda needs a GPU; both compares the call sets")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--markdown", action="store_true")
     args = ap.parse_args()
@@ -204,20 +195,20 @@ def main():
     enable_compile_cache()
 
     grid = QUICK_GRID if args.grid == "quick" else FULL_GRID
-    backends = ["scan", "pallas"] if args.backend == "both" else [args.backend]
+    backends = ["scan", "cuda"] if args.backend == "both" else [args.backend]
     rows = []
     for cell in grid:
         cell_calls = {}
         for be in backends:
-            m, calls = run_cell(cell, be, args.seed, interpret=args.interpret)
+            m, calls = run_cell(cell, be, args.seed)
             cell_calls[be] = calls
             print(json.dumps(m), flush=True)
             rows.append(m)
         if len(backends) == 2:
-            diff = cell_calls["scan"] ^ cell_calls["pallas"]
+            diff = cell_calls["scan"] ^ cell_calls["cuda"]
             print(json.dumps(dict(
                 coverage=cell.coverage, noise=cell.noise,
-                density=cell.density, backend="scan^pallas",
+                density=cell.density, backend="scan^cuda",
                 n_call_diffs=len(diff), diffs=sorted(diff)[:10],
             )), flush=True)
 

@@ -33,7 +33,7 @@ N_SNPS = 40
 
 def main():
     enable_compile_cache()
-    cfg = AlignConfig(read_tile=8)
+    cfg = AlignConfig()
     rng = np.random.default_rng(1)
     model = default_model()
 

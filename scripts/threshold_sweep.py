@@ -1,5 +1,5 @@
-"""Caller threshold sweep over the accuracy grid (VERDICT r2 task 8) and the
-skip-transition end-to-end comparison (task 7).
+"""Caller threshold sweep over the accuracy grid and the skip-transition
+end-to-end comparison.
 
 The expensive pipeline (anchor -> banded DP -> rescore -> accumulate) runs
 ONCE per grid cell; the calling thresholds (snp_threshold x
@@ -8,9 +8,9 @@ host-side ``call_snps`` pass, so the whole sweep costs one pipeline run per
 cell plus milliseconds per combo.
 
 Usage:
-  python scripts/threshold_sweep.py --backend pallas            # real TPU
+  python scripts/threshold_sweep.py --backend cuda              # GPU
   python scripts/threshold_sweep.py --backend scan              # CPU
-  python scripts/threshold_sweep.py --backend scan --use-skip   # task 7
+  python scripts/threshold_sweep.py --backend scan --use-skip   # skip DP
 
 Prints per-combo aggregate TP/FP/FN over the grid (micro-averaged), the
 per-cell table for the best combo, and a markdown row block for BASELINE.md.
@@ -31,7 +31,7 @@ sys.path.insert(0, ".")
 from accuracy_sweep import FULL_GRID, QUICK_GRID, build_world  # noqa: E402
 
 
-def accumulate_cell(cell, backend, seed, cfg, interpret=False):
+def accumulate_cell(cell, backend, seed, cfg):
     """One pipeline run; returns (acc, cov, votes, truth, ref_genome, k)."""
     import jax.numpy as jnp
 
@@ -48,19 +48,13 @@ def accumulate_cell(cell, backend, seed, cfg, interpret=False):
                               rd.move_index, index, ref_genome, rd.read_id)
         if rec is not None:
             records.append(rec)
-    subst = None
-    if backend == "pallas":
-        from nadavca_tpu.ops.subst_tables import build_subst_tables
-
-        subst = build_subst_tables(ref_genome, model)
     G = len(ref_genome["ref"])
     acc, cov, votes = callmod.make_accumulators(G, with_votes=True)
     records.sort(key=lambda r: len(r.signal))
     for i in range(0, len(records), 256):
         group = records[i : i + 256]
         batch = assemble_batch(group, model, cfg)
-        out = align_batch(batch, model, cfg, backend=backend, subst=subst,
-                          interpret=interpret)
+        out = align_batch(batch, model, cfg, backend=backend)
         acc, cov, votes = callmod.accumulate_batch(
             acc, cov, out["base_loglik"],
             jnp.asarray(batch.window_start), jnp.asarray(batch.window_len),
@@ -85,13 +79,12 @@ def score(calls, truth, cov_np, k, min_cov):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--backend", choices=("scan", "pallas"), default="scan")
+    ap.add_argument("--backend", choices=("scan", "cuda"), default="scan")
     ap.add_argument("--grid", choices=("quick", "full"), default="full")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--use-skip", action="store_true",
                     help="enable the DP skip transition (log_p_skip=-3.5, "
                          "matching the simulator's 3%% pore-skip rate)")
-    ap.add_argument("--interpret", action="store_true")
     args = ap.parse_args()
 
     from nadavca_tpu import call as callmod
@@ -108,8 +101,7 @@ def main():
     cells = []
     for cell in grid:
         acc, cov, votes, truth, ref_genome, k = accumulate_cell(
-            cell, args.backend, args.seed, base_cfg,
-            interpret=args.interpret)
+            cell, args.backend, args.seed, base_cfg)
         cells.append((cell, acc, cov, votes, truth, ref_genome, k))
         print(f"# accumulated {cell}", file=sys.stderr, flush=True)
 

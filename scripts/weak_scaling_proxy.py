@@ -1,7 +1,7 @@
 """Weak-scaling proxy for the multi-host SNP pipeline (BASELINE.json config 5).
 
-Real ≥2-host ICI/DCN scaling needs pod hardware this sandbox lacks; the
-honest substitute is N local jax.distributed CPU processes with the SAME
+Real multi-host scaling needs a cluster; the honest substitute is N local
+jax.distributed CPU processes with the SAME
 per-process read count (weak scaling): per-process throughput should stay
 flat as N grows if the collective merge is not a bottleneck. This measures
 the shipped CLI end-to-end (`snp --coordinator`), not a toy step.
@@ -89,7 +89,7 @@ def main():
         eff = results[n][1] / base if base > 0 else 0.0
         print(f"| {n} | {results[n][1]:.2f} | {eff:.2f} |")
     print("\nNOTE: CPU-process proxy on a 2-core host — N>2 oversubscribes "
-          "the host, so efficiencies there bound below the ICI/DCN truth; "
+          "the host, so efficiencies there bound below the real interconnect; "
           "the number that matters is N=2 vs N=1.")
 
 

@@ -2,7 +2,7 @@
 
 Runs the quick sweep grid from scripts/accuracy_sweep.py inside pytest:
 recall/precision floors on simulated truth with honest error processes
-(subs + indels + skips), and scan-vs-pallas cross-backend call concordance.
+(subs + indels + skips).
 The full grid runs out-of-band (see BASELINE.md accuracy table).
 """
 
@@ -33,18 +33,3 @@ def test_quick_grid_floors():
         assert m["precision"] >= 0.75, f"precision floor: {m}"
         # non-shift false calls: at most 1 per cell
         assert m["fp"] - m["n_shifted"] <= 1, f"unexplained FPs: {m}"
-
-
-def test_scan_pallas_call_concordance():
-    """The Pallas backend (interpret mode on CPU) must produce the identical
-    call set to the scan backend on a full sweep cell."""
-    from nadavca_tpu.config import AlignConfig
-
-    cell = sweep.Cell(coverage=8, noise=0.9, density=1 / 800,
-                      read_len=400, genome_len=4000)
-    cfg = AlignConfig(kernel_unroll=1)  # keep interpret-mode compile small
-    _, calls_scan = sweep.run_cell(cell, "scan", seed=11, cfg=cfg)
-    _, calls_pl = sweep.run_cell(cell, "pallas", seed=11, interpret=True,
-                                 cfg=cfg)
-    assert calls_scan == calls_pl, (
-        f"cross-backend diff: {sorted(calls_scan ^ calls_pl)}")

@@ -103,3 +103,28 @@ def test_cli_align_devices8_identical(simdir, tmp_path):
     for f in files:
         assert (open(os.path.join(out1, f), "rb").read()
                 == open(os.path.join(out8, f), "rb").read()), f
+
+
+def test_prefetched_reraises_worker_errors():
+    """A failure while preparing a batch must surface in the loop, not end
+    the stream as if the input were exhausted."""
+    def prepare(g):
+        if g == 2:
+            raise RuntimeError("prep failed")
+        return g
+
+    got = []
+    with pytest.raises(RuntimeError, match="prep failed"):
+        for item in cli._prefetched(iter(range(5)), prepare):
+            got.append(item)
+    assert got == [0, 1]
+
+
+@pytest.mark.parametrize("cmd", ["align", "snp"])
+def test_backend_cuda_without_gpu_fails_up_front(simdir, tmp_path, cmd):
+    """--backend cuda on a host without a GPU raises before any ingest:
+    nothing runs in an interpreter, nothing retries on the CPU."""
+    out = str(tmp_path / ("out.vcf" if cmd == "snp" else "aln"))
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        cli.main([cmd, os.path.join(simdir, "reference.fasta"), simdir,
+                  "-o", out, "--backend", "cuda"])

@@ -144,3 +144,54 @@ def test_base_substitution_detects_snp():
     assert int(np.argmax(ll[pos])) == true_base
     # and the margin should be decisive
     assert ll[pos, true_base] - ll[pos, (true_base + 1) % 4] > 2.0
+
+
+def _banded_read(seed, use_skip):
+    rng = np.random.default_rng(seed)
+    model = default_model()
+    genome = random_genome(rng, length=600)
+    read = simulate_read(genome, "ref", model, rng, read_len=500, strand=1,
+                         mean_dwell=6.0, skip_prob=0.05 if use_skip else 0.0)
+    mu, sigma = model.expected_signal(read.window_codes)
+    cfg = AlignConfig(band_width=128, use_skip=use_skip,
+                      log_p_skip=-4.6 if use_skip else -1e30)
+    lo = dp_spec.make_band(read.true_path.astype(np.float64), len(mu),
+                           cfg.band_width)
+    return (read.signal, mu.astype(np.float64), sigma.astype(np.float64),
+            lo, cfg)
+
+
+@pytest.mark.parametrize("use_skip", [False, True])
+def test_path_score_of_the_viterbi_path_is_its_score(use_skip):
+    x, mu, sigma, lo, cfg = _banded_read(21, use_skip)
+    score, path = dp_spec.banded_viterbi(x, mu, sigma, lo, cfg)
+    assert len(mu) > cfg.band_width  # the band really cuts the reference
+    assert np.isclose(dp_spec.path_score(x, mu, sigma, lo, path, cfg), score,
+                      rtol=1e-12, atol=1e-9)
+    if use_skip:  # non-vacuous: the skip transition is priced
+        assert (np.diff(path) == 2).any()
+
+
+@pytest.mark.parametrize("edit", ["shift_one_boundary", "leave_band",
+                                  "step_back", "step_of_two_without_skip"])
+def test_path_score_prices_other_paths_below_the_optimum(edit):
+    """A legal detour scores lower than the optimum; a path the DP cannot
+    produce scores NEG_INF."""
+    x, mu, sigma, lo, cfg = _banded_read(22, False)
+    score, path = dp_spec.banded_viterbi(x, mu, sigma, lo, cfg)
+    alt = path.copy()
+    t = int(np.nonzero(np.diff(path) == 1)[0][len(path) // 40]) + 1
+    if edit == "shift_one_boundary":   # move one sample across a boundary
+        alt[t] = path[t - 1]
+        got = dp_spec.path_score(x, mu, sigma, lo, alt, cfg)
+        assert dp_spec.NEG_INF < got < score
+        return
+    if edit == "leave_band":
+        alt[t:] = np.maximum(alt[t:], lo[t:] + cfg.band_width)
+    elif edit == "step_back":
+        alt[t] = path[t] - 2
+    else:  # one sample early to the next position: a step of 2, then 0
+        t2 = t + int(np.argmax(np.diff(path[t:]) == 1)) + 1
+        alt[t:t2] += 1
+        assert np.all((alt >= lo) & (alt < lo + cfg.band_width))
+    assert dp_spec.path_score(x, mu, sigma, lo, alt, cfg) == dp_spec.NEG_INF

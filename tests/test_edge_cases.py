@@ -12,7 +12,7 @@ from nadavca_tpu.io.simulator import random_genome, simulate_read
 from nadavca_tpu.kmer_model import default_model
 from nadavca_tpu.pipeline import align_batch, assemble_batch, preprocess_read
 
-CFG = AlignConfig(read_tile=8)
+CFG = AlignConfig()
 
 
 def test_reference_with_N_bases():

@@ -86,12 +86,11 @@ def test_multihost_cli_vcf_identical(tmp_path):
     assert sum(1 for l in mh_body if not l.startswith("#")) >= 1
 
 
-def test_multihost_cli_pallas_uneven_n3(tmp_path):
-    """Production configuration through the CLI multihost loop (VERDICT r3
-    task 5): pallas backend (interpret off-TPU) + genome-sharded
-    accumulators, 3 processes with UNEVEN shards — the all-padding-batch
-    path runs for real — asserting the byte-identical VCF of a
-    single-process run."""
+def test_multihost_cli_scan_uneven_n3(tmp_path):
+    """Production configuration through the CLI multihost loop: the scan
+    backend + genome-sharded accumulators, 3 processes with UNEVEN shards —
+    the all-padding-batch path runs for real — asserting the
+    byte-identical VCF of a single-process run."""
     repo = os.path.join(os.path.dirname(__file__), "..")
     base_env = {k: v for k, v in os.environ.items()
                 if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
@@ -110,7 +109,7 @@ def test_multihost_cli_pallas_uneven_n3(tmp_path):
     env1 = dict(base_env)
     env1["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
     r = _run_cli(["snp", str(data / "reference.fasta"), str(data),
-                  "-o", str(ref_vcf), "--backend", "pallas",
+                  "-o", str(ref_vcf), "--backend", "scan",
                   "--batch-reads", "8", "--genome-sharded", "off"], env1)
     assert r.returncode == 0, r.stdout + r.stderr
 
@@ -121,7 +120,7 @@ def test_multihost_cli_pallas_uneven_n3(tmp_path):
         subprocess.Popen(
             [sys.executable, "-m", "nadavca_tpu.cli", "snp",
              str(data / "reference.fasta"), str(data), "-o", str(out_vcf),
-             "--backend", "pallas", "--batch-reads", "8",
+             "--backend", "scan", "--batch-reads", "8",
              "--genome-sharded", "on",
              "--coordinator", "127.0.0.1:9437",
              "--num-processes", "3", "--process-id", str(i)],

@@ -1,11 +1,12 @@
-"""Skip-transition parity across all four DP tiers (SURVEY.md §3.4's optional
-``V[t−1, i−2]`` transition; VERDICT round-1 item 2).
+"""Skip-transition parity across the DP tiers (SURVEY.md §3.4's optional
+``V[t−1, i−2]`` transition).
 
 Tiers under test with ``cfg.use_skip=True``:
   1. float64 oracle      ops/dp_spec.py   (brute-force check in test_dp_spec)
   2. lax.scan            ops/banded_dp.py
-  3. Pallas fill + both backtracks        ops/pallas_dp.py (interpret mode)
-  4. native C++ core     csrc/banded_dp.cpp via ops/cpu_ref.py
+  3. native C++ core     csrc/banded_dp.cpp via ops/cpu_ref.py
+The CUDA kernels' skip plane is checked against the scan tier in
+tests/test_cuda_dp.py.
 
 Fixtures are simulated with real pore skip events (simulate_squiggle
 ``skip_prob``), so the recovered Viterbi paths genuinely contain advance-by-2
@@ -21,14 +22,11 @@ from nadavca_tpu.config import AlignConfig
 from nadavca_tpu.genome import kmer_ids
 from nadavca_tpu.io.simulator import random_genome, simulate_read
 from nadavca_tpu.kmer_model import default_model
-from nadavca_tpu.ops import banded_dp, cpu_ref, dp_spec, pallas_dp
+from nadavca_tpu.ops import banded_dp, cpu_ref, dp_spec
 from nadavca_tpu.sched import build_chunked_bands
 
-# kernel_unroll=1 keeps the interpret-mode trace small (the default fully
-# unrolls the 128-step chunk loop, which explodes XLA-CPU compile time for
-# the two-plane skip kernel); results are unroll-invariant.
-CFG = AlignConfig(band_width=128, signal_chunk=128, read_tile=8,
-                  use_skip=True, log_p_skip=-4.6, kernel_unroll=1)
+CFG = AlignConfig(band_width=128, signal_chunk=128, use_skip=True,
+                  log_p_skip=-4.6)
 
 
 @pytest.fixture(scope="module")
@@ -108,79 +106,6 @@ def test_scan_skip_matches_spec(batch):
     _assert_has_skips(paths)
 
 
-def test_pallas_skip_matches_scan(batch):
-    b = batch
-    bands = b["bands"]
-    lo_full = bands.expand(b["x"].shape[1])
-    scan_res = banded_dp.banded_viterbi_batch(
-        b["x"], b["t_len"], b["mu"], b["sigma"], b["n_ref"], lo_full, CFG
-    )
-    pl_res, decs = pallas_dp.pallas_viterbi_batch(
-        jnp.asarray(b["x"]), jnp.asarray(b["t_len"]), jnp.asarray(b["mu"]),
-        jnp.asarray(b["sigma"]), jnp.asarray(b["n_ref"]),
-        jnp.asarray(bands.lo), jnp.asarray(bands.delta), CFG, interpret=True,
-    )
-    assert len(decs) == 2, "skip fill must emit two decision bit-planes"
-    np.testing.assert_allclose(
-        np.asarray(pl_res.score), np.asarray(scan_res.score), rtol=1e-4, atol=1e-2
-    )
-    paths = []
-    for r in range(b["x"].shape[0]):
-        t = int(b["t_len"][r])
-        sp = np.asarray(scan_res.path[r, :t])
-        pp = np.asarray(pl_res.path[r, :t])
-        assert np.array_equal(sp, pp), f"read {r}: pallas vs scan path mismatch"
-        paths.append(pp)
-    _assert_has_skips(paths)
-
-
-def test_pallas_skip_matches_f64_spec(batch):
-    b = batch
-    bands = b["bands"]
-    pl_res, _ = pallas_dp.pallas_viterbi_batch(
-        jnp.asarray(b["x"]), jnp.asarray(b["t_len"]), jnp.asarray(b["mu"]),
-        jnp.asarray(b["sigma"]), jnp.asarray(b["n_ref"]),
-        jnp.asarray(bands.lo), jnp.asarray(bands.delta), CFG, interpret=True,
-    )
-    for r, (score, path) in enumerate(_spec_paths(b)):
-        t = int(b["t_len"][r])
-        pp = np.asarray(pl_res.path[r, :t])
-        agree = np.mean(pp == path)
-        assert agree > 0.999, f"read {r}: pallas vs spec path agreement {agree}"
-        assert np.isclose(float(pl_res.score[r]), score, rtol=1e-4, atol=0.05)
-
-
-def test_both_backtracks_agree_under_skip(batch):
-    """backtrack_from_bits (XLA scan) and backtrack_pallas (one-hot walk) must
-    decode identical paths from the two decision bit-planes."""
-    b = batch
-    bands = b["bands"]
-    n_chunks = bands.lo.shape[1]
-    R, T = b["x"].shape
-    lo_cm = bands.lo.T.reshape(n_chunks, R, 1).astype(np.int32)
-    dl_cm = bands.delta.T.reshape(n_chunks, R, 1).astype(np.int32)
-    mu_band, sg_band = pallas_dp.gather_band_levels_jax(
-        jnp.asarray(b["mu"]), jnp.asarray(b["sigma"]),
-        jnp.asarray(bands.lo), CFG.band_width)
-    decs, v_fin, acc = pallas_dp.viterbi_fill_pallas(
-        jnp.asarray(b["x"]), jnp.asarray(b["t_len"]), mu_band, sg_band,
-        jnp.asarray(lo_cm), jnp.asarray(dl_cm), jnp.asarray(b["n_ref"]),
-        CFG, interpret=True,
-    )
-    lane = jnp.arange(CFG.band_width, dtype=jnp.int32)[None, :]
-    i_fin = jnp.asarray(bands.lo)[:, -1][:, None] + lane
-    v_valid = jnp.where(i_fin < jnp.asarray(b["n_ref"])[:, None], v_fin,
-                        banded_dp.NEG_INF)
-    j_end = jnp.argmax(v_valid, axis=1).astype(jnp.int32)
-    p_xla = pallas_dp.backtrack_from_bits(
-        decs, jnp.asarray(bands.lo), jnp.asarray(bands.delta), j_end,
-        chunk_size=CFG.signal_chunk)
-    p_pl = pallas_dp.backtrack_pallas(
-        decs, jnp.asarray(bands.lo), jnp.asarray(bands.delta), j_end,
-        CFG.signal_chunk, interpret=True)
-    np.testing.assert_array_equal(np.asarray(p_xla), np.asarray(p_pl))
-
-
 def test_cpu_skip_matches_spec(batch):
     b = batch
     lo_full = b["bands"].expand(b["x"].shape[1])
@@ -204,11 +129,9 @@ def test_cpu_skip_matches_spec(batch):
 
 def test_rescore_tiers_agree_on_skip_path(batch):
     """Restricted local re-DP on a path containing advance-by-2 steps: the
-    float64 spec, the XLA batch, the Pallas kernel, and the C++ core must all
-    implement the same skipped-position window semantics (empty sample range
-    for a skipped position; window clamped to the path span)."""
-    from nadavca_tpu.ops import pallas_rescore
-
+    float64 spec, the XLA batch and the C++ core must all implement the same
+    skipped-position window semantics (empty sample range for a skipped
+    position; window clamped to the path span)."""
     b = batch
     model = b["model"]
     reads = b["reads"]
@@ -234,8 +157,6 @@ def test_rescore_tiers_agree_on_skip_path(batch):
             model.k)
     ll_scan = np.asarray(banded_dp.base_loglik_local_batch(
         *args, CFG, t_w=CFG.snp_local_window))
-    ll_pl = np.asarray(pallas_rescore.base_loglik_local_pallas(
-        *args, CFG, t_w=CFG.snp_local_window, interpret=True))[:, :L]
 
     for r, rd in enumerate(reads):
         spec = dp_spec.base_substitution_loglik_local(
@@ -246,7 +167,6 @@ def test_rescore_tiers_agree_on_skip_path(batch):
         )
         lw = len(rd.window_codes)
         np.testing.assert_allclose(ll_scan[r, :lw], spec, rtol=5e-3, atol=5e-2)
-        np.testing.assert_allclose(ll_pl[r, :lw], spec, rtol=5e-3, atol=5e-2)
         cpu = cpu_ref.base_loglik_local_cpu(
             rd.signal.astype(np.float32), rd.window_codes.astype(np.int32),
             rd.true_path.astype(np.int32),
